@@ -2,7 +2,7 @@
 
 Launches TWO separate Python processes, each owning 4 virtual CPU
 devices, joined by `jax.distributed` into one 8-device runtime — the CI
-proxy for a multi-host TPU pod slice (reference analogue: the
+proxy for a multi-host GPU deployment (reference analogue: the
 ssh-distributed demo harness, demo/mixnet/macros:256-277).  A full
 single-party mix runs as ONE SPMD program with the ciphertext axis
 sharded across both processes; the test asserts both processes produce
@@ -42,9 +42,9 @@ def test_two_process_spmd_mix(tmp_path):
             VMN_DIST_PROCID=str(i),
             JAX_PLATFORMS="cpu",
             XLA_FLAGS="--xla_force_host_platform_device_count=4",
-            JAX_COMPILATION_CACHE_DIR="/tmp/jax_cache",
+            # a cache of the test's own: both workers fill it together
+            JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jax_cache"),
         )
-        env.pop("VMN_PALLAS_INTERPRET", None)
         procs.append(subprocess.Popen(
             [sys.executable, str(REPO / "tools" / "dist_worker.py"),
              str(tmp_path), str(n)],

@@ -1,31 +1,34 @@
-"""Direct Pallas TPU kernel tests (interpret mode on CPU).
+"""Montgomery core and EC point-arithmetic tests against Python bignums.
 
-The kernels in vmn_tpu/ops/mont_kernels.py are the entire performance
-story; these tests check them limb-for-limb against Python bignum
-arithmetic without TPU hardware, including edge values (0, 1, m-1, zero
-and maximal exponents).  A kernel regression previously would only have
-surfaced as a wrong election result on hardware.
+The core (vmn_tpu/ops/mont_core.h) is the whole performance story on the
+GPU.  Its arithmetic is checked here through its host build — a CPU FFI
+target compiled with g++ from the same header — limb for limb against
+Python bignum arithmetic, including edge values (0, 1, m-1, zero and
+maximal exponents), odd limb counts and broadcast rows.  The same entry
+points run the CUDA kernels on the card (`gpu`-marked parity test in
+tests/test_scale.py).  The EC tests check the XLA point formulas that
+the NIST-curve groups use.
 """
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from vmn_tpu.arith.limbs import int_to_limbs, limbs_to_int
 from vmn_tpu.arith.mont import MontCtx
-from vmn_tpu.ops.mont_kernels import (
-    mont_exp_pallas,
-    mont_fb8_exp_pallas,
-    mont_fb_exp_pallas,
-    mont_mul_pallas,
-)
+from vmn_tpu.ops import core
 
 P256 = int(
     "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff72ef",
     16,
 )
+P521 = (1 << 521) - 1  # 33 limbs: exercises the odd-limb shift
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _host_core():
+    core.load("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -50,22 +53,30 @@ def _edge_values(m):
     return [0, 1, 2, m - 1, m - 2, m // 2, 3, m // 3, 12345, m - 12345]
 
 
-def test_mont_mul_pallas_interpret(ctx):
+@pytest.mark.parametrize("modulus", [P256, P521], ids=["even_L", "odd_L"])
+def test_core_mont_mul(modulus):
+    ctx = MontCtx(modulus)
     m = ctx.m
     vals = _edge_values(m)
     a_ints = vals + vals[::-1]
     b_ints = vals[::-1] + vals
     a = jnp.asarray(_to_mont_np(ctx, a_ints))
     b = jnp.asarray(_to_mont_np(ctx, b_ints))
-    with pltpu.force_tpu_interpret_mode():
-        out = mont_mul_pallas(a, b, ctx.m_limbs, ctx.mprime)
+    out = core.mont_mul(a, b, ctx.m_limbs)
     got = _from_mont_ints(ctx, np.asarray(out))
     # mont_mul of Montgomery forms yields Montgomery form of product
     want = [(x % m) * (y % m) % m for x, y in zip(a_ints, b_ints)]
     assert got == want
+    # a single (1, L) row broadcasts against the batch
+    row = core.mont_mul(a, b[3:4], ctx.m_limbs)
+    assert _from_mont_ints(ctx, np.asarray(row)) == [
+        x % m * (b_ints[3] % m) % m for x in a_ints
+    ]
 
 
-def test_mont_exp_pallas_interpret(ctx):
+@pytest.mark.parametrize("modulus", [P256, P521], ids=["even_L", "odd_L"])
+def test_core_mont_exp(modulus):
+    ctx = MontCtx(modulus)
     m = ctx.m
     bases = [2, 1, m - 1, 3, 12345, m - 2, 7, 1 << 60]
     exps = [0, 1, 2, m - 2, (1 << 255) - 1, 65537, 50, 3]
@@ -73,48 +84,29 @@ def test_mont_exp_pallas_interpret(ctx):
     e = jnp.asarray(
         np.stack([int_to_limbs(x, ctx.L) for x in exps])
     )
-    with pltpu.force_tpu_interpret_mode():
-        out = mont_exp_pallas(
-            a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256
-        )
+    out = core.mont_exp(a, e, ctx.m_limbs, ctx.one_mont, m.bit_length())
     got = _from_mont_ints(ctx, np.asarray(out))
     want = [pow(b % m, x, m) for b, x in zip(bases, exps)]
     assert got == want
 
 
-def test_mont_fb_exp_pallas_interpret(ctx):
+@pytest.mark.parametrize("window", [4, 8])
+def test_core_fb_exp(ctx, window):
     m = ctx.m
     g = 4
     exps = [0, 1, 2, m - 2, (1 << 255) - 1, 65537, 50, 3]
-    tbl = ctx.fb_table_pallas(g, 256)
+    tbl = ctx.fixed_base_table(g, 256, window)
+    assert tbl.shape == (256 // window, 1 << window, ctx.L)
     e = jnp.asarray(np.stack([int_to_limbs(x, ctx.L) for x in exps]))
-    with pltpu.force_tpu_interpret_mode():
-        out = mont_fb_exp_pallas(
-            tbl, e, ctx.m_limbs, ctx.mprime, ctx.one_mont
-        )
+    out = core.fb_exp(tbl, e, ctx.m_limbs, ctx.one_mont)
     got = _from_mont_ints(ctx, np.asarray(out))
     want = [pow(g, x, m) for x in exps]
     assert got == want
 
 
-def test_mont_fb8_exp_pallas_interpret(ctx):
-    m = ctx.m
-    g = 4
-    exps = [0, 1, 2, m - 2, (1 << 255) - 1, 65537, 50, 3]
-    tbl = ctx.fixed_base_table(g, 256, 8)
-    e = jnp.asarray(np.stack([int_to_limbs(x, ctx.L) for x in exps]))
-    with pltpu.force_tpu_interpret_mode():
-        out = mont_fb8_exp_pallas(
-            tbl, e, ctx.m_limbs, ctx.mprime, ctx.one_mont
-        )
-    got = _from_mont_ints(ctx, np.asarray(out))
-    want = [pow(g, x, m) for x in exps]
-    assert got == want
-
-
-def test_kernels_match_xla_path(ctx):
-    """Pallas kernels and the portable XLA fallback agree on random
-    batches (the dispatch layer switches between them by backend)."""
+def test_core_matches_xla_path(ctx):
+    """The core and the portable XLA path agree on random batches (the
+    dispatch layer switches between them by platform)."""
     from vmn_tpu.arith import mont as mont_mod
 
     rng = np.random.default_rng(7)
@@ -128,21 +120,20 @@ def test_kernels_match_xla_path(ctx):
     xla = mont_mod.mont_exp(
         a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256
     )
-    with pltpu.force_tpu_interpret_mode():
-        pal = mont_exp_pallas(
-            a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256
-        )
-    assert np.array_equal(np.asarray(xla), np.asarray(pal))
+    got = core.mont_exp(a, e, ctx.m_limbs, ctx.one_mont, 256)
+    assert np.array_equal(np.asarray(xla), np.asarray(got))
+    assert np.array_equal(
+        np.asarray(mont_mod.mont_mul(a, a, ctx.m_limbs, ctx.mprime)),
+        np.asarray(core.mont_mul(a, a, ctx.m_limbs)),
+    )
 
 
-def test_mont_expprod_pallas_interpret(ctx):
-    """Digit-position-parallel multi-exp kernel vs Python bignum, over
-    several batch sizes (padding paths) and exponent bit bounds."""
-    from vmn_tpu.ops.mont_kernels import mont_expprod_pallas
-
+def test_core_expprod(ctx):
+    """Digit-position multi-exp vs Python bignum, over several batch
+    sizes (chunking paths) and exponent bit bounds."""
     m = ctx.m
     rng = np.random.default_rng(11)
-    for N, nbits in [(5, 256), (160, 256), (300, 100), (64, 16)]:
+    for N, nbits in [(5, 256), (160, 256), (300, 100), (64, 16), (1, 8)]:
         b_ints = [int.from_bytes(rng.bytes(31), "big") % m
                   for _ in range(N)]
         e_ints = [
@@ -155,10 +146,7 @@ def test_mont_expprod_pallas_interpret(ctx):
         e_ints[-1] = (1 << nbits) - 1
         b = jnp.asarray(_to_mont_np(ctx, b_ints))
         e = jnp.asarray(np.stack([int_to_limbs(x, ctx.L) for x in e_ints]))
-        with pltpu.force_tpu_interpret_mode():
-            out = mont_expprod_pallas(
-                b, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, nbits
-            )
+        out = core.expprod(b, e, ctx.m_limbs, ctx.one_mont, nbits)
         got = _from_mont_ints(ctx, np.asarray(out)[None])[0]
         want = 1
         for x, k in zip(b_ints, e_ints):
@@ -166,8 +154,9 @@ def test_mont_expprod_pallas_interpret(ctx):
         assert got == want, (N, nbits)
 
 
-def test_mont_expprod_matches_host_straus(ctx):
-    """Fused kernel vs the host-tree Straus path on a random batch."""
+def test_core_expprod_matches_host_straus(ctx):
+    """Core multi-exp and its positions vs the XLA Straus path and the
+    XLA per-position products on a random batch."""
     from vmn_tpu.arith import mont as mont_mod
 
     rng = np.random.default_rng(13)
@@ -178,18 +167,32 @@ def test_mont_expprod_matches_host_straus(ctx):
     a = jnp.asarray(_to_mont_np(ctx, a_ints))
     e = jnp.asarray(np.stack([int_to_limbs(x, ctx.L) for x in e_ints]))
     host = mont_mod._expprod_shared(
-        a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256, False
+        a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256
     )
-    from vmn_tpu.ops.mont_kernels import mont_expprod_pallas
+    got = core.expprod(a, e, ctx.m_limbs, ctx.one_mont, 256)
+    assert np.array_equal(np.asarray(host), np.asarray(got))
+    pos_xla = mont_mod._expprod_positions(
+        a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 64
+    )
+    pos = core.expprod_positions(a, e, ctx.m_limbs, ctx.one_mont, 64)
+    assert pos.shape == (16, ctx.L)
+    assert np.array_equal(np.asarray(pos_xla), np.asarray(pos))
 
-    with pltpu.force_tpu_interpret_mode():
-        pal = mont_expprod_pallas(
-            a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256
-        )
-    assert np.array_equal(np.asarray(host), np.asarray(pal))
+
+def test_core_widths():
+    """The wrapper's width table and the library's agree: every listed
+    width runs, an unlisted one is refused by the handler."""
+    for W in core.WIDTHS:
+        assert core.supports(2 * W) and core.supports(2 * W - 1)
+    assert not core.supports(2 * 9)
+    m = (1 << (16 * 18 - 1)) + 1  # 18 limbs -> 9 words: no build
+    ctx = MontCtx(m)
+    one = jnp.asarray(int_to_limbs(1, ctx.L))[None]
+    with pytest.raises(Exception, match="no build"):
+        np.asarray(core.mont_mul(one, one, ctx.m_limbs))
 
 
-# ---------------------------------------------------------- EC kernels
+# ---------------------------------------------------------- EC formulas
 
 
 def _host_ec_add(p, a, P, Q):
@@ -221,11 +224,21 @@ def _host_ec_mul(p, a, P, k):
     return acc
 
 
-def test_ec_scalar_mul_pallas_interpret():
-    """Fused Jacobian scalar-mul kernel vs host affine arithmetic,
+def _check_points(ctx, x_aff, y_aff, inf_out, want):
+    got_x = _from_mont_ints(ctx, np.asarray(x_aff))
+    got_y = _from_mont_ints(ctx, np.asarray(y_aff))
+    infs = np.asarray(inf_out)
+    for i, w in enumerate(want):
+        if w is None:
+            assert infs[i], f"row {i}: expected infinity"
+        else:
+            assert not infs[i] and (got_x[i], got_y[i]) == w, f"row {i}"
+
+
+def test_ec_scalar_mul():
+    """Windowed Jacobian scalar multiplication vs host affine arithmetic,
     including identity scalars and the infinity input point."""
-    from vmn_tpu.arith.ec import ECqPGroup
-    from vmn_tpu.ops import ec_kernels, mont_kernels
+    from vmn_tpu.arith.ec import ECqPGroup, _scalar_mul
 
     grp = ECqPGroup.named("P-256")
     ctx = grp.ctx
@@ -243,43 +256,20 @@ def test_ec_scalar_mul_pallas_interpret():
     e = jnp.asarray(np.stack([
         int_to_limbs(k, Le) for k in scalars
     ]))
-
-    old = mont_kernels.INTERPRET
-    mont_kernels.INTERPRET = True
-    try:
-        X, Y, Z = ec_kernels.ec_scalar_mul_pallas(
-            xs, ys, inf, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256
-        )
-        x_aff, y_aff, inf_out = grp.curve.normalize(X, Y, Z)
-    finally:
-        mont_kernels.INTERPRET = old
-    got_x = _from_mont_ints(ctx, np.asarray(x_aff))
-    got_y = _from_mont_ints(ctx, np.asarray(y_aff))
-    infs = np.asarray(inf_out)
-    for i, w in enumerate(want):
-        if w is None:
-            assert infs[i], f"row {i}: expected infinity"
-        else:
-            assert not infs[i] and (got_x[i], got_y[i]) == w, f"row {i}"
+    _check_points(ctx, *_scalar_mul(grp.curve, xs, ys, inf, e, 256), want)
 
     # infinity input point stays infinity under any scalar
-    X, Y, Z = None, None, None
-    mont_kernels.INTERPRET = True
-    try:
-        X, Y, Z = ec_kernels.ec_scalar_mul_pallas(
-            ctx.encode([0]), ctx.encode([0]), jnp.ones((1,), bool),
-            e[:1], ctx.m_limbs, ctx.mprime, ctx.one_mont, 256,
-        )
-    finally:
-        mont_kernels.INTERPRET = old
-    assert np.all(np.asarray(Z) == 0)
+    _, _, inf_out = _scalar_mul(
+        grp.curve, ctx.encode([0]), ctx.encode([0]), jnp.ones((1,), bool),
+        e[:1], 256,
+    )
+    assert bool(np.asarray(inf_out)[0])
 
 
-def test_ec_point_add_pallas_interpret():
-    """Jacobian add kernel vs host affine arithmetic, incl. P+P, P+(-P),
+def test_ec_point_add():
+    """Jacobian addition vs host affine arithmetic, incl. P+P, P+(-P),
     inf+P and P+inf."""
     from vmn_tpu.arith.ec import ECqPGroup
-    from vmn_tpu.ops import ec_kernels, mont_kernels
 
     grp = ECqPGroup.named("P-256")
     ctx = grp.ctx
@@ -311,45 +301,22 @@ def test_ec_point_add_pallas_interpret():
 
     x1, y1, z1 = enc([c[0] for c in cases])
     x2, y2, z2 = enc([c[1] for c in cases])
-    old = mont_kernels.INTERPRET
-    mont_kernels.INTERPRET = True
-    try:
-        X, Y, Z = ec_kernels.ec_point_add_pallas(
-            x1, y1, z1, x2, y2, z2, ctx.m_limbs, ctx.mprime
-        )
-        x_aff, y_aff, inf_out = grp.curve.normalize(X, Y, Z)
-    finally:
-        mont_kernels.INTERPRET = old
-    got_x = _from_mont_ints(ctx, np.asarray(x_aff))
-    got_y = _from_mont_ints(ctx, np.asarray(y_aff))
-    infs = np.asarray(inf_out)
-    for i, w in enumerate(want):
-        if w is None:
-            assert infs[i], f"case {i}: expected infinity"
-        else:
-            assert not infs[i] and (got_x[i], got_y[i]) == w, f"case {i}"
+    X, Y, Z = grp.curve.point_add(x1, y1, z1, x2, y2, z2)
+    _check_points(ctx, *grp.curve.normalize(X, Y, Z), want)
 
 
-def test_ec_multiexp_pallas_interpret(monkeypatch):
-    """Digit-position-parallel EC multi-exp kernel vs host arithmetic,
-    over batch sizes exercising padding and a zero/max scalar."""
-    from vmn_tpu.arith.ec import ECqPGroup
-    from vmn_tpu.ops import ec_kernels, mont_kernels
-
-    # small position-block unroll + tile keep the interpret-mode XLA
-    # graph compilable in seconds (CPU inlines every kernel op; on TPU
-    # Mosaic compiles the kernel once)
-    monkeypatch.setattr(ec_kernels, "_EP_JB", 4)
-    monkeypatch.setattr(ec_kernels, "TILE_N", 128)
+def test_ec_multiexp():
+    """Multi-exponentiation sum_i k_i P_i vs host arithmetic, over batch
+    sizes exercising odd tree levels and a zero/max scalar."""
+    from vmn_tpu.arith.ec import ECArray, ECqPGroup
+    from vmn_tpu.arith.pgroup import FArray
 
     grp = ECqPGroup.named("P-256")
     ctx = grp.ctx
     p, a = grp.p, grp.a
     G = (grp.gx, grp.gy)
     rng = np.random.default_rng(17)
-    # small nbits keep the interpret-mode graphs compilable in seconds
-    # on CPU; digit/padding logic is identical at any size
-    for N, nbits in [(5, 64), (70, 32)]:
+    for N, nbits in [(5, 64), (7, 32)]:
         pts = [_host_ec_mul(p, a, G, i + 2) for i in range(N)]
         ks = [int.from_bytes(rng.bytes((nbits + 7) // 8), "big")
               % (1 << nbits) for _ in range(N)]
@@ -358,58 +325,24 @@ def test_ec_multiexp_pallas_interpret(monkeypatch):
         want = None
         for pt, k in zip(pts, ks):
             want = _host_ec_add(p, a, want, _host_ec_mul(p, a, pt, k))
-        xs = ctx.encode([pt[0] for pt in pts])
-        ys = ctx.encode([pt[1] for pt in pts])
-        inf = jnp.zeros((N,), bool)
-        Le = (nbits + 15) // 16
-        e = jnp.asarray(np.stack([int_to_limbs(k, Le) for k in ks]))
-        old = mont_kernels.INTERPRET
-        mont_kernels.INTERPRET = True
-        try:
-            X, Y, Z = ec_kernels.ec_multiexp_pallas(
-                grp.curve, xs, ys, inf, e, nbits
-            )
-            x_aff, y_aff, inf_out = grp.curve.normalize(X, Y, Z)
-        finally:
-            mont_kernels.INTERPRET = old
-        gx = _from_mont_ints(ctx, np.asarray(x_aff)[None])[0]
-        gy = _from_mont_ints(ctx, np.asarray(y_aff)[None])[0]
-        assert (gx, gy) == want, (N, nbits)
+        arr = ECArray(grp, ctx.encode([pt[0] for pt in pts]),
+                      ctx.encode([pt[1] for pt in pts]),
+                      jnp.zeros((N,), bool))
+        e = FArray(grp.ring, jnp.asarray(np.stack([
+            int_to_limbs(k, grp.ring.L) for k in ks
+        ])))
+        assert arr.exp_prod(e, nbits).to_affine() == [want], (N, nbits)
 
 
-def test_ec_fb_exp_pallas_interpret(monkeypatch):
-    """Windowed fixed-base EC kernel vs host arithmetic (table built on
-    device), incl. scalar 0 -> infinity."""
-    from vmn_tpu.arith.ec import ECqPGroup, _ec_fb_table_device
-    from vmn_tpu.ops import ec_kernels, mont_kernels
-
-    monkeypatch.setattr(ec_kernels, "TILE_N", 128)
+def test_ec_fixed_base():
+    """A shared base point raised to a batch of scalars (the g.exp path)
+    vs host arithmetic, incl. scalar 0 -> infinity."""
+    from vmn_tpu.arith.ec import ECqPGroup
 
     grp = ECqPGroup.named("P-256")
-    ctx = grp.ctx
     p, a = grp.p, grp.a
     G = (grp.gx, grp.gy)
     scalars = [0, 1, 2, (1 << 64) - 1, 12345, (1 << 63) + 99, 7]
     want = [_host_ec_mul(p, a, G, k) for k in scalars]
-    gpt = grp.g
-    X0, Y0, Z0 = gpt._jac()
-    tbx, tby = _ec_fb_table_device(grp.curve, X0, Y0, Z0, 16)
-    Le = (64 + 15) // 16
-    e = jnp.asarray(np.stack([int_to_limbs(k, Le) for k in scalars]))
-    old = mont_kernels.INTERPRET
-    mont_kernels.INTERPRET = True
-    try:
-        X, Y, Z = ec_kernels.ec_fb_exp_pallas(
-            tbx, tby, e, ctx.m_limbs, ctx.mprime, ctx.one_mont
-        )
-        x_aff, y_aff, inf_out = grp.curve.normalize(X, Y, Z)
-    finally:
-        mont_kernels.INTERPRET = old
-    got_x = _from_mont_ints(ctx, np.asarray(x_aff))
-    got_y = _from_mont_ints(ctx, np.asarray(y_aff))
-    infs = np.asarray(inf_out)
-    for i, w in enumerate(want):
-        if w is None:
-            assert infs[i], f"row {i}: expected infinity"
-        else:
-            assert not infs[i] and (got_x[i], got_y[i]) == w, f"row {i}"
+    e = grp.ring.from_ints(scalars)
+    assert grp.g.exp_bits(e, 64).to_affine() == want

@@ -151,7 +151,7 @@ def test_fixed_base_exp():
     es = _rand_ints(9, Q256)
     ebits = Q256.bit_length()
     e = np.asarray(ints_to_limbs(es, num_limbs(ebits)))
-    got = ctx.decode(ctx.fixed_base_exp(g, e, ebits))
+    got = ctx.decode(ctx.exp_fixed(g, e, ebits))
     assert got == [pow(g, ee, m) for ee in es]
 
 
@@ -200,17 +200,17 @@ def test_chunked_scans_match_plain():
     M._SCAN_CHUNK = 8
     try:
         got = M._prods_scan_chunked(
-            xm, ctx.m_limbs, ctx.mprime, ctx.one_mont, False
+            xm, ctx.m_limbs, ctx.mprime, ctx.one_mont
         )
         want = M._prods_scan(
-            xm, ctx.m_limbs, ctx.mprime, ctx.one_mont, False
+            xm, ctx.m_limbs, ctx.mprime, ctx.one_mont
         )
         assert np.array_equal(np.asarray(got), np.asarray(want))
         got = M._rec_lin_chunked(
-            xm, bstd, ctx.m_limbs, ctx.mprime, ctx.one_mont, False
+            xm, bstd, ctx.m_limbs, ctx.mprime, ctx.one_mont
         )
         want = M._rec_lin_scan(
-            xm, bstd, ctx.m_limbs, ctx.mprime, ctx.one_mont, False
+            xm, bstd, ctx.m_limbs, ctx.mprime, ctx.one_mont
         )
         assert np.array_equal(np.asarray(got), np.asarray(want))
     finally:

@@ -220,19 +220,19 @@ def test_native_jacobi_membership_matches_euler():
         group.elem_from_bytetree(bad_bt)
 
 
-def test_qr_check_device_accepts_members_rejects_nonmembers(monkeypatch):
-    """Randomized device QR test (interpret-mode kernels): all-members
-    pass; a single planted non-residue is caught (prob 1 - 2^-100)."""
+@pytest.mark.parametrize("route", ["xla", "core"])
+def test_qr_check_device_accepts_members_rejects_nonmembers(route, request):
+    """Randomized device QR test on either kernel route (the core through
+    its host build): all-members pass; a single planted non-residue is
+    caught (prob 1 - 2^-100)."""
     import numpy as np
 
     import jax.numpy as jnp
 
-    from vmn_tpu.arith import mont as mont_mod
     from vmn_tpu.arith.pgroup import ModPGroup
-    from vmn_tpu.ops import mont_kernels
 
-    monkeypatch.setattr(mont_mod, "_PALLAS_ENABLED", True)
-    monkeypatch.setattr(mont_kernels, "INTERPRET", True)
+    if route == "core":
+        request.getfixturevalue("core_on_cpu")
 
     from vmn_tpu.arith.limbs import int_to_limbs
 

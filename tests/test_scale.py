@@ -1,8 +1,8 @@
 """Four-digit-N end-to-end tests (reference: the check matrix runs
 N in {100, 10000} and forced-maxciph configs, demo/mixnet/check:84,
 .checkbaseconf:1-120).  Exercises the regimes tiny-N tests never
-reach: multi-tile batches (N > TILE_N lanes), real disk-spill
-thresholds, and keep-list shrink at scale.
+reach: batches spanning many kernel blocks, real disk-spill thresholds,
+and keep-list shrink at scale.
 
 Set VMN_SKIP_SLOW=1 to skip locally; CI runs them.
 """
@@ -99,61 +99,13 @@ def test_precomp_shrink_n1024(tmp_path):
     assert res.ok
 
 
-@pytest.mark.skipif(
-    os.environ.get("VMN_TPU_TESTS") != "1",
-    reason="TPU-only scale test; set VMN_TPU_TESTS=1 on a TPU host",
-)
-def test_tpu_kernel_parity_n_2_20():
-    """Kernel correctness at N=2^20 on real hardware: the fused exp
-    kernel over 4096 grid steps agrees with host bignum pow on sampled
-    rows (reference analogue: N=10^6 north-star scale)."""
-    import numpy as np
+@pytest.mark.gpu
+def test_core_parity_modp2048():
+    """Every CUDA core entry point at modp2048 (L=128) on a batch that
+    spans many blocks and ends in a partial one, bit-identical to Python
+    `pow` and to the XLA path, incl. zero/one/m-1/maximal exponents and
+    the full-size window-8 table (the check `chip_smoke.py` runs)."""
+    from vmn_tpu.ops import parity
 
-    import jax.numpy as jnp
-
-    from vmn_tpu.arith.limbs import int_to_limbs, limbs_to_int
-    from vmn_tpu.arith.mont import MontCtx
-    from vmn_tpu.ops.mont_kernels import mont_exp_pallas
-
-    group = ModPGroup.named("test256")
-    ctx = MontCtx(group.p)
-    n = 1 << 20
-    rng = np.random.default_rng(0)
-    base_ints = [int(x) for x in rng.integers(2, 1 << 62, size=64)]
-    a = ctx.encode(base_ints)
-    a = jnp.tile(a, (n // 64, 1))
-    e = jnp.asarray(
-        rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
-    )
-    out = mont_exp_pallas(
-        a, e, ctx.m_limbs, ctx.mprime, ctx.one_mont, 256
-    )
-    # sample rows across distinct grid tiles
-    idx = [0, 255, 256, 65535, 65536, n - 1]
-    rows = np.asarray(ctx.from_mont(out[jnp.asarray(idx)]))
-    e_host = np.asarray(e)
-    for k, i in enumerate(idx):
-        ei = sum(
-            int(e_host[i, j]) << (16 * j) for j in range(16)
-        )
-        want = pow(base_ints[i % 64], ei, group.p)
-        assert limbs_to_int(rows[k]) == want, f"row {i}"
-
-
-@pytest.mark.skipif(
-    os.environ.get("VMN_TPU_TESTS") != "1",
-    reason="TPU-only north-star test; set VMN_TPU_TESTS=1 on a TPU host",
-)
-def test_tpu_northstar_full_protocol_2_20():
-    """The north star on real hardware: full mix+prove+VERIFY at
-    N=2^20 > 10^6 ciphertexts, 2048-bit group, with plaintext-multiset
-    correctness (reference: the mixing_lengths axis of
-    demo/mixnet/benchmarks/bench_config:33-46 at production scale;
-    exercises the HBM discipline — phase backpressure, chunked scans,
-    bounded kernel launches, super-chunked multi-exp)."""
-    from tools.bench_suite import _mix_once
-
-    cps, dt, dtv, ok = _mix_once(1 << 20, time_verify=True,
-                                 check_correct=True)
-    assert ok
-    assert cps > 0 and dtv > 0
+    parity.check_core(ModPGroup.named("modp2048"), (1 << 16) + 37,
+                      log=lambda *_: None)

@@ -77,15 +77,15 @@ def test_sharded_group_ops_match_single_device(mesh):
     assert np.array_equal(np.asarray(pm1.limbs), np.asarray(pm2.limbs))
 
 
-def test_sharded_pallas_kernel_ops(mesh, monkeypatch):
-    """The Pallas fast path is shard-capable: with the kernels forced on
-    (interpret mode emulates TPU Mosaic on CPU), sharded inputs route
-    through the shard_map-wrapped kernels in parallel/mesh.py and give
-    bit-identical results to the single-device XLA run (reference
-    analogue: VCR's transparent array-op thread parallelism, SURVEY.md
-    §2.5)."""
+def test_sharded_core_ops(mesh, core_on_cpu, monkeypatch):
+    """The core path is shard-capable: with the Montgomery core routed
+    in (its host build stands in for the CUDA build on CPU), sharded
+    inputs go through the shard_map-wrapped core calls in
+    parallel/mesh.py and give bit-identical results to the
+    single-device XLA run (reference analogue: VCR's transparent
+    array-op thread parallelism, SURVEY.md §2.5)."""
     from vmn_tpu.arith import mont
-    from vmn_tpu.ops import mont_kernels
+    from vmn_tpu.parallel import mesh as pmesh
 
     group = ModPGroup.named("test256")
     rs = SeededSource(b"shard-pallas")
@@ -95,6 +95,7 @@ def test_sharded_pallas_kernel_ops(mesh, monkeypatch):
     b = group.ring.random((N,), SeededSource(b"b2"), 64)
 
     # Single-device references on the XLA path.
+    monkeypatch.setattr(mont, "_use_core", lambda L: False)
     ref_exp = np.asarray(arr.exp(e).limbs)
     ref_mul = np.asarray(arr.mul(arr).limbs)
     ref_prod = np.asarray(arr.prod().limbs)
@@ -103,15 +104,27 @@ def test_sharded_pallas_kernel_ops(mesh, monkeypatch):
     ref_rl = np.asarray(b.rec_lin(e)[0].limbs)
     ref_sum = np.asarray(e.sum().limbs)
     ref_fb = np.asarray(group.g.exp(e).limbs)
+    ctx = group.ctx
+    ref_pos = np.asarray(ctx.expprod_positions(arr.limbs, e.limbs, 64))
+    monkeypatch.setattr(mont, "_use_core", core_on_cpu.supports)
+    jax.clear_caches()
 
     sharded = shard_array(arr, mesh)
     e_sh = shard_array(e, mesh)
     b_sh = shard_array(b, mesh)
 
-    # Kernels through the basic Pallas interpreter (per-device, no
-    # shared-state callbacks -> composes with shard_map on CPU).
-    monkeypatch.setattr(mont_kernels, "INTERPRET", True)
-    monkeypatch.setattr(mont, "_PALLAS_ENABLED", True)
+    # Every Montgomery op below must route through parallel/mesh.py.
+    calls = set()
+    names = ("sharded_mul", "sharded_exp", "sharded_prod",
+             "sharded_exp_prod", "sharded_prods_scan", "sharded_rec_lin",
+             "sharded_fb_exp", "sharded_exp_prod_positions")
+    for name in names:
+        def counted(*a, _fn=getattr(pmesh, name), _name=name):
+            calls.add(_name)
+            return _fn(*a)
+
+        monkeypatch.setattr(pmesh, name, counted)
+
     assert np.array_equal(np.asarray(sharded.exp(e_sh).limbs), ref_exp)
     assert np.array_equal(np.asarray(sharded.mul(sharded).limbs), ref_mul)
     assert np.array_equal(np.asarray(sharded.prod().limbs), ref_prod)
@@ -123,10 +136,71 @@ def test_sharded_pallas_kernel_ops(mesh, monkeypatch):
         np.asarray(b_sh.rec_lin(e_sh)[0].limbs), ref_rl
     )
     assert np.array_equal(np.asarray(e_sh.sum().limbs), ref_sum)
-    # fixed-base kernel route (shared host-known base, sharded e)
+    # fixed-base route (shared host-known base, sharded e)
     assert np.array_equal(
         np.asarray(group.g.exp(e_sh).limbs), ref_fb
     )
+    assert np.array_equal(
+        np.asarray(ctx.expprod_positions(sharded.limbs, e_sh.limbs, 64)),
+        ref_pos,
+    )
+    assert calls == set(names)
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["one", "mesh"])
+def test_core_lone_row_operands(mesh, core_on_cpu, monkeypatch, sharded):
+    """A lone (L,) operand — a shared factor or base — reaches the core as
+    one stride-0 row, and is broadcast only for the per-shard calls;
+    either way the result is bit-identical to XLA."""
+    from vmn_tpu.arith import mont
+
+    group = ModPGroup.named("test256")
+    ctx = group.ctx
+    rs = SeededSource(b"lone-row")
+    x = group.g.exp(group.ring.random((N,), rs, 64)).limbs
+    e = group.ring.random((N,), rs, 64).limbs
+    row, erow = x[3], e[5]
+
+    def run():
+        return [ctx.mul(x, row), ctx.mul(row, x), ctx.mul(row, row),
+                ctx.exp(row, erow, 64), ctx.exp(x, erow, 64),
+                jax.jit(lambda b, y: ctx.exp(b, y, 64))(row, e)]
+
+    monkeypatch.setattr(mont, "_use_core", lambda L: False)
+    ref = [np.asarray(r) for r in run()]
+    monkeypatch.setattr(mont, "_use_core", core_on_cpu.supports)
+    jax.clear_caches()
+    rows = []
+    mul = core_on_cpu.mont_mul
+
+    def counted(a, b, m):
+        rows.append((a.shape[0], b.shape[0]))
+        return mul(a, b, m)
+
+    monkeypatch.setattr(core_on_cpu, "mont_mul", counted)
+    if sharded:
+        x, e = shard_limbs(x, mesh), shard_limbs(e, mesh)
+    got = run()
+    shard = N // mesh.size
+    assert rows == ([(shard, shard)] * 2 if sharded
+                    else [(N, 1), (1, N)]) + [(1, 1)]
+    for r, g in zip(ref, got):
+        assert r.shape == g.shape
+        assert np.array_equal(r, np.asarray(g))
+
+
+def test_gpu_width_without_core_warns(monkeypatch):
+    """On the GPU a width the core has no build for runs XLA, with a
+    warning that names the width; built widths take the core."""
+    from vmn_tpu.arith import mont
+    from vmn_tpu.ops import core
+
+    monkeypatch.setattr(mont.jax, "default_backend", lambda: "gpu")
+    mont._warn_no_core.cache_clear()
+    assert mont._use_core(128) and core.supports(128)
+    assert not core.supports(64)
+    with pytest.warns(RuntimeWarning, match="1024-bit"):
+        assert not mont._use_core(64)
 
 
 def _mix_once(tmp_path, tag, ciphs):
@@ -186,14 +260,15 @@ def test_sharded_mix_bit_identical(tmp_path, mesh):
     assert res.ok
 
 
-def test_sharded_mix_pallas_bit_identical(tmp_path, mesh, monkeypatch):
-    """The FULL k=1 mix over sharded inputs with the Pallas kernel path
-    forced on (basic interpreter on the CPU mesh) — what a real
-    multi-chip TPU run executes — is bit-identical to the plain
-    single-device XLA run."""
+def test_sharded_mix_core_bit_identical(tmp_path, mesh, core_on_cpu,
+                                        monkeypatch):
+    """The FULL k=1 mix over sharded inputs with the core path routed in
+    (its host build on the CPU mesh) — what a multi-card GPU run
+    executes — is bit-identical to the plain single-device XLA run."""
     from vmn_tpu.arith import mont
-    from vmn_tpu.ops import mont_kernels
+    from vmn_tpu.parallel import mesh as pmesh
 
+    monkeypatch.setattr(mont, "_use_core", lambda L: False)
     group = ModPGroup.named("test256")
     params = ProtocolParams(
         sid="ShardSID", k=1, threshold=1, pgroup=group,
@@ -212,11 +287,21 @@ def test_sharded_mix_pallas_bit_identical(tmp_path, mesh, monkeypatch):
 
     _, _, out_plain = _mix_once(tmp_path, "single2", ciphs)
 
-    monkeypatch.setattr(mont_kernels, "INTERPRET", True)
-    monkeypatch.setattr(mont, "_PALLAS_ENABLED", True)
+    monkeypatch.setattr(mont, "_use_core", core_on_cpu.supports)
+    jax.clear_caches()
+    routed = set()
+    for name in ("sharded_mul", "sharded_exp", "sharded_fb_exp",
+                 "sharded_exp_prod", "sharded_prod", "sharded_prods_scan",
+                 "sharded_rec_lin"):
+        def counted(*a, _fn=getattr(pmesh, name), _name=name):
+            routed.add(_name)
+            return _fn(*a)
+
+        monkeypatch.setattr(pmesh, name, counted)
     _, _, out_shard = _mix_once(
         tmp_path, "sharded2", shard_array(ciphs, mesh)
     )
+    assert "sharded_mul" in routed
     assert np.array_equal(
         np.asarray(out_plain.limbs), np.asarray(out_shard.limbs)
     )

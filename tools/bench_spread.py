@@ -1,8 +1,8 @@
 """Run the driver bench 3x and record the spread (VERDICT round-3 item:
 pin down run-to-run variance under the driver's own conditions).
 
-Writes BENCH_spread.json at the repo root.  Run on the TPU host with
-nothing else using the chip or the host CPUs.
+Writes chiprun_out/bench_spread.json.  Run on the GPU machine with
+nothing else using the card or the host CPUs.
 """
 
 import json
@@ -40,10 +40,12 @@ def main():
         "verify_cps": spread("verify_cps"),
         "combined_cps": spread("mix_prove_verify_cps"),
     }
-    (ROOT / "BENCH_spread.json").write_text(
+    out = ROOT / "chiprun_out" / "bench_spread.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(
         json.dumps(report, indent=1) + "\n"
     )
-    print("wrote BENCH_spread.json")
+    print(f"wrote {out}")
 
 
 if __name__ == "__main__":

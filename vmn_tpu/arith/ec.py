@@ -71,8 +71,8 @@ class _Curve:
         self.one_m = jnp.asarray(c.one_mont)
 
     # shorthand field ops (Montgomery form).  `mul` dispatches through
-    # MontCtx so batched field products ride the Pallas kernel on TPU
-    # (and the shard_map wrappers for sharded batches).
+    # MontCtx so batched field products use the Montgomery core on the
+    # GPU (and the shard_map wrappers for sharded batches).
     def mul(self, x, y):
         return self.ctx.mul(x, y)
 
@@ -176,10 +176,10 @@ class _Curve:
     def batch_inv(self, z):
         """Montgomery-trick batched inversion of (..., L) nonzero
         elements: one field exp + O(N log N) muls in 2 Hillis-Steele
-        scans.  The scans dispatch through MontCtx.prods_scan, so on
-        TPU every round is ONE fused Pallas product over the batch
-        (the associative_scan-of-XLA-muls this replaces dominated
-        every EC point operation's cost via `normalize`)."""
+        scans.  The scans dispatch through MontCtx.prods_scan, so every
+        round is ONE batched product over the batch (an associative
+        scan of XLA products dominated every EC point operation's cost
+        via `normalize`)."""
         c = self.ctx
         if z.ndim == 1:
             return self.inv_single(z)
@@ -278,111 +278,6 @@ def _scalar_mul(curve: _Curve, x, y, inf, e, nbits: int):
 
     accX, accY, accZ = jax.lax.fori_loop(0, ndig, body, (accX, accY, accZ))
     return curve.normalize(accX, accY, accZ)
-
-
-def _point_add_dispatch(curve: _Curve, X1, Y1, Z1, X2, Y2, Z2):
-    """Jacobian + Jacobian addition; fused Pallas kernel for 2-D
-    batches on TPU, XLA formulas otherwise.  Returns Jacobian."""
-    ctx = curve.ctx
-    if (
-        mont.use_pallas()
-        and X1.ndim == 2
-        and X1.shape == X2.shape
-        and X1.shape[0] > 0
-    ):
-        info = mont.shard_info(X1, X2)
-        if info is not None:
-            if X1.shape[0] % info[0].size != 0:
-                return curve.point_add(X1, Y1, Z1, X2, Y2, Z2)
-            from vmn_tpu.parallel.mesh import sharded_ec_add
-
-            return sharded_ec_add(
-                X1, Y1, Z1, X2, Y2, Z2, ctx.m_limbs, ctx.mprime, *info
-            )
-        from vmn_tpu.ops.ec_kernels import ec_point_add_pallas
-
-        return ec_point_add_pallas(
-            X1, Y1, Z1, X2, Y2, Z2, ctx.m_limbs, ctx.mprime
-        )
-    return curve.point_add(X1, Y1, Z1, X2, Y2, Z2)
-
-
-def _scalar_mul_dispatch(curve: _Curve, x, y, inf, e, nbits: int):
-    """Scalar multiplication with the fused Pallas kernel on TPU.
-
-    The kernel (ops/ec_kernels.py) keeps the 16-entry multiples table
-    and every field product VMEM-resident — the `vec`-library analogue
-    (reference: SURVEY.md §2.3).  Sharded batches route through the
-    shard_map wrapper; non-TPU and scalar shapes use the XLA ladder.
-    """
-    ctx = curve.ctx
-    if mont.use_pallas() and (x.ndim > 1 or e.ndim > 1):
-        shape = jnp.broadcast_shapes(x.shape[:-1], e.shape[:-1])
-        L = x.shape[-1]
-        x2 = jnp.broadcast_to(x, shape + (L,)).reshape(-1, L)
-        y2 = jnp.broadcast_to(y, shape + (L,)).reshape(-1, L)
-        i2 = jnp.broadcast_to(inf, shape).reshape(-1)
-        e2 = jnp.broadcast_to(e, shape + e.shape[-1:]).reshape(
-            -1, e.shape[-1]
-        )
-        if x2.shape[0] > 0:
-            info = mont.shard_info(x2, e2)
-            if info is not None:
-                if x2.shape[0] % info[0].size != 0:
-                    # sharded but uneven: GSPMD XLA ladder, never the
-                    # raw per-device kernel
-                    return _scalar_mul(curve, x, y, inf, e, nbits)
-                from vmn_tpu.parallel.mesh import sharded_ec_smul
-
-                X, Y, Z = sharded_ec_smul(
-                    x2, y2, i2, e2, ctx.m_limbs, ctx.mprime,
-                    ctx.one_mont, nbits, *info,
-                )
-            else:
-                from vmn_tpu.ops.ec_kernels import ec_scalar_mul_pallas
-
-                X, Y, Z = ec_scalar_mul_pallas(
-                    x2, y2, i2, e2, ctx.m_limbs, ctx.mprime,
-                    ctx.one_mont, nbits,
-                )
-            xo, yo, io = curve.normalize(X, Y, Z)
-            return (
-                xo.reshape(shape + (L,)),
-                yo.reshape(shape + (L,)),
-                io.reshape(shape),
-            )
-    return _scalar_mul(curve, x, y, inf, e, nbits)
-
-
-@functools.partial(jax.jit, static_argnames=("curve", "ndig"))
-def _ec_fb_table_device(curve, X, Y, Z, ndig: int):
-    """Windowed fixed-base table: affine coords of d * 2^(4j) * P for
-    d in [1, 16), j in [0, ndig) — one compiled program of batched
-    point ops (the doubling chain is the only sequential part).
-    Returns (tx, ty) each (ndig, 16, L); row d = 0 is zeros (the kernel
-    flags it as infinity by digit value)."""
-    bx, by, bz = [], [], []
-    for _j in range(ndig):
-        bx.append(X)
-        by.append(Y)
-        bz.append(Z)
-        for _ in range(4):
-            X, Y, Z = curve.point_double(X, Y, Z)
-    BX, BY, BZ = jnp.stack(bx), jnp.stack(by), jnp.stack(bz)  # (ndig, L)
-    TX, TY, TZ = [BX], [BY], [BZ]
-    cx, cy, cz = BX, BY, BZ
-    for _d in range(2, 16):
-        cx, cy, cz = curve.point_add(cx, cy, cz, BX, BY, BZ)
-        TX.append(cx)
-        TY.append(cy)
-        TZ.append(cz)
-    L = BX.shape[-1]
-    flat = lambda t: jnp.stack(t).reshape(15 * ndig, L)
-    ax, ay, _inf = curve.normalize(flat(TX), flat(TY), flat(TZ))
-    zeros = jnp.zeros((1, ndig, L), jnp.uint32)
-    tx = jnp.concatenate([zeros, ax.reshape(15, ndig, L)], axis=0)
-    ty = jnp.concatenate([zeros, ay.reshape(15, ndig, L)], axis=0)
-    return jnp.transpose(tx, (1, 0, 2)), jnp.transpose(ty, (1, 0, 2))
 
 
 # ====================================================================
@@ -764,7 +659,7 @@ class ECArray:
     mask.  Mirrors the GArray surface (exp = scalar mul, mul = point
     add, prod, exp_prod, ...)."""
 
-    __slots__ = ("grp", "x", "y", "inf", "_bt", "_fbt")
+    __slots__ = ("grp", "x", "y", "inf", "_bt")
 
     def spill(self) -> "ECArray":
         """Disk-spill backend hook (arrays=file)."""
@@ -829,9 +724,7 @@ class ECArray:
         X1, Y1, Z1, X2, Y2, Z2 = (
             jnp.broadcast_to(t, shape) for t in (X1, Y1, Z1, X2, Y2, Z2)
         )
-        x, y, inf = c.normalize(
-            *_point_add_dispatch(c, X1, Y1, Z1, X2, Y2, Z2)
-        )
+        x, y, inf = c.normalize(*c.point_add(X1, Y1, Z1, X2, Y2, Z2))
         return ECArray(self.grp, x, y, inf)
 
     def inv(self) -> "ECArray":
@@ -863,91 +756,16 @@ class ECArray:
         return self._exp_impl(e.limbs, nbits)
 
     def _exp_impl(self, e_limbs, nbits: int) -> "ECArray":
-        """Scalar-mul dispatch.  A SHARED scalar base (g, pk, h0 — the
-        reference routes these through gmpmee/vec fixed-base tables,
-        used 91x, SURVEY.md §2.3) raised to a large batch goes through
-        the windowed fixed-base kernel: no doublings, one mixed
-        addition per digit — ~1.8x fewer field products than the
-        general scalar-mul kernel, plus a cached one-time table."""
         c = self.grp.curve
-        # The windowed fixed-base route is DISABLED pending a table
-        # re-layout: its (ndig*16, L) VMEM table puts the small EC field
-        # (L=16 limbs for P-256) on the 128-lane axis, so every per-digit
-        # gather runs at ~12% lane utilization — measured 4.6x SLOWER
-        # than the general fused scalar-mul kernel (P-256 mix 1183 ->
-        # 514 c/s).  The kernel itself is correct (test_kernels) and
-        # wins once the table is packed lane-major.
-        if False and (
-            mont.use_pallas()
-            and self.x.ndim == 1
-            and e_limbs.ndim == 2
-            and e_limbs.shape[0] >= 64
-            and mont.shard_info(e_limbs) is None
-        ):
-            tbl = self._fb_tables(nbits)
-            if tbl is not None:
-                from vmn_tpu.ops.ec_kernels import ec_fb_exp_pallas
-
-                X, Y, Z = ec_fb_exp_pallas(
-                    tbl[0], tbl[1], e_limbs, c.ctx.m_limbs, c.ctx.mprime,
-                    c.ctx.one_mont,
-                )
-                x, y, inf = c.normalize(X, Y, Z)
-                return ECArray(self.grp, x, y, inf)
-        x, y, inf = _scalar_mul_dispatch(
-            c, self.x, self.y, self.inf, e_limbs, nbits
-        )
+        x, y, inf = _scalar_mul(c, self.x, self.y, self.inf, e_limbs, nbits)
         return ECArray(self.grp, x, y, inf)
-
-    def _fb_tables(self, nbits: int):
-        """Cached (ndig, 16, L) fixed-base tables for this scalar point
-        (None when the point is at infinity)."""
-        ndig = max(1, -(-nbits // 4))
-        cache = getattr(self, "_fbt", None)
-        if cache is None:
-            cache = {}
-            self._fbt = cache
-        hit = cache.get(ndig)
-        if hit is not None:
-            return hit if hit != () else None
-        if bool(np.asarray(self.inf)):
-            cache[ndig] = ()
-            return None
-        c = self.grp.curve
-        X, Y, Z = self._jac()
-        tbl = _ec_fb_table_device(c, X, Y, Z, ndig)
-        cache[ndig] = tbl
-        return tbl
 
     def exp_prod(self, e, nbits: Optional[int] = None) -> "ECArray":
         """Simultaneous multi-exponentiation sum_i e_i * P_i
-        (reference: PGroupElementArray.expProd via gmpmee/vec spowm).
-
-        TPU path: fused digit-position-parallel kernels (shared
-        doublings across the whole batch, ops/ec_kernels.py) — the
-        naive per-element scalar-mul + add-tree costs ~2x the field
-        products and round-trips HBM."""
+        (reference: PGroupElementArray.expProd via gmpmee/vec spowm):
+        per-element scalar multiplication and an addition tree."""
         nbits = self.grp.ring.nbits if nbits is None else nbits
         nbits = min(nbits, LIMB_BITS * e.limbs.shape[-1])
-        c = self.grp.curve
-        # Crossover vs the naive scalar-mul + add-tree: the fused path
-        # saves ~1700 field muls/element but pays ~0.4 s of fixed
-        # overhead (lane reduce + the sequential position combine) —
-        # measured break-even near 10^5 elements on P-256.
-        if (
-            mont.use_pallas()
-            and self.x.ndim == 2
-            and e.limbs.ndim == 2
-            and self.x.shape[0] >= (1 << 17)
-            and mont.shard_info(self.x, e.limbs) is None
-        ):
-            from vmn_tpu.ops.ec_kernels import ec_multiexp_pallas
-
-            X, Y, Z = ec_multiexp_pallas(
-                c, self.x, self.y, self.inf, e.limbs, nbits
-            )
-            x, y, inf = c.normalize(X, Y, Z)
-            return ECArray(self.grp, x, y, inf)
         powers = self.exp_bits(e, nbits)
         return powers.prod()
 
@@ -960,8 +778,8 @@ class ECArray:
         while X.shape[0] > 1:
             nel = X.shape[0]
             h = nel // 2
-            aX, aY, aZ = _point_add_dispatch(
-                c, X[:h], Y[:h], Z[:h], X[h : 2 * h], Y[h : 2 * h],
+            aX, aY, aZ = c.point_add(
+                X[:h], Y[:h], Z[:h], X[h : 2 * h], Y[h : 2 * h],
                 Z[h : 2 * h],
             )
             if nel % 2:

@@ -1,11 +1,12 @@
-"""Multi-limb big-integer representation for TPU lanes.
+"""Multi-limb big-integer representation for device arrays.
 
 Big integers are tensors of shape ``(..., L)`` with dtype ``uint32``, each
 lane holding one 16-bit limb, least-significant limb first.  16-bit limbs
-in 32-bit lanes make schoolbook products exact (16x16 -> 32) and leave
-~7 bits of headroom for lazy carry accumulation across a 128-limb
-(2048-bit) Montgomery pass — the TPU VPU has no widening integer multiply,
-so this is the widest radix with exact products.
+in 32-bit lanes make schoolbook products exact (16x16 -> 32) in plain XLA
+integer arithmetic, which has no widening multiply, and leave ~7 bits of
+headroom for lazy carry accumulation across a 128-limb (2048-bit)
+Montgomery pass.  The codec and the transcripts depend on this layout; the
+CUDA core (`vmn_tpu.ops`) packs limb pairs into 32-bit words internally.
 
 This replaces the reference's GMP `LargeInteger(Array)` representation
 (reference: SURVEY.md §2.3 — gmpmee/vmgj native stack).

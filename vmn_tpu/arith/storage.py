@@ -4,7 +4,7 @@ The reference supports file-mapped `LargeIntegerArray`s so that N can
 exceed host RAM (reference: ProtocolElGamal.java:332-345, the `arrays`
 private-info field, toggled in the check matrix `ARRAYS=file`).
 
-The TPU-native equivalent (SURVEY.md §2.5): large *resident* arrays —
+The device-batched equivalent (SURVEY.md §2.5): large *resident* arrays —
 cached generators, permutation commitments, re-encryption factors,
 ciphertext lists between rounds — are spilled to ``np.memmap`` files on
 disk; device kernels stream slices from the memmap on demand, so host

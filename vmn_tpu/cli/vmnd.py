@@ -51,12 +51,12 @@ def main(argv=None) -> int:
     n = args.N
     msgs = [f"{i:08d}".encode() for i in range(n)]
     if args.width == 1:
-        m = group.from_ints([group.encode_message(s) for s in msgs])
+        m = group.from_ints(group.encode_messages(msgs))
     else:
         from vmn_tpu.arith.pgroup import PPArray
 
         m = PPArray(plain, tuple(
-            group.from_ints([group.encode_message(s) for s in msgs])
+            group.from_ints(group.encode_messages(msgs))
             for _ in range(args.width)
         ))
     r = plain.ring.random((n,), rs, 0)

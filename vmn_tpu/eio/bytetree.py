@@ -17,7 +17,7 @@ Integer conventions (both from the reference):
   * fixed-length integers (group/field elements inside arrays) are stored
     as unsigned big-endian arrays of a fixed per-group byte length.
 
-This module is host-side Python: serialization never runs on the TPU.
+This module is host-side Python: serialization never runs on the device.
 The hot path — converting large batches of device-resident group elements
 to byte-tree bytes — is vectorized with numpy in `vmn_tpu.arith.limbs`.
 """

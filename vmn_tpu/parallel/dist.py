@@ -3,10 +3,16 @@
 The reference scales across machines by running one JVM per mix-server
 plus VCR's transparent array-op parallelism inside each
 (reference: demo/mixnet/macros:256-277 ssh distribution; SURVEY.md §2.5
-multi-host rows).  TPU-native design: ONE party's device work spans a
-multi-host pod slice as a single SPMD program — every process runs the
-same protocol code, arrays are `jax.Array`s sharded over the GLOBAL
-mesh, and XLA inserts the ICI/DCN collectives.
+multi-host rows).  Design: ONE party's device work spans several hosts as
+a single SPMD program — every process runs the same protocol code, arrays
+are `jax.Array`s sharded over the GLOBAL mesh, and XLA inserts the
+collectives.
+
+One process per host drives all of that host's cards.  Several processes
+on one multi-card host must each be given their own card
+(`CUDA_VISIBLE_DEVICES=<i>`): a JAX process reserves most of every
+card it sees when it first uses it, so without that they would all
+reserve card 0.
 
 Launch contract (env-driven, also settable via `vmn -dist`):
 
@@ -18,7 +24,7 @@ Launch contract (env-driven, also settable via `vmn -dist`):
 before first device use.  After it, `jax.devices()` is the global
 device list and `parallel.mesh.ciph_mesh()` spans all hosts.
 
-CPU dryrun proxy (no TPU pod needed): two localhost processes with
+CPU dryrun proxy (no GPUs needed): two localhost processes with
 `--xla_force_host_platform_device_count` devices each — exercised by
 `tests/test_dist.py` via `tools/dist_worker.py`, asserting transcripts
 are produced through real cross-process collectives and verify with the

@@ -1,24 +1,24 @@
-"""Mesh placement + shard-mapped kernel ops for the ciphertext axis.
+"""Mesh placement + shard-mapped core ops for the ciphertext axis.
 
 The mix-net's scaling axis is N, the number of ciphertexts (reference
 analogue: VCR thread-split array ops + file-mapped arrays, SURVEY.md
-§2.5).  TPU-native design: place every (N, L) limb tensor with the N
-axis sharded over a 1-D `jax.sharding.Mesh`.  Two execution paths:
+§2.5).  Every (N, L) limb tensor is placed with the N axis sharded over a
+1-D `jax.sharding.Mesh`.  Two execution paths:
 
   * portable XLA path — GSPMD partitions the jitted limb ops directly
     (elementwise ops shard trivially, log-depth trees lower to
-    per-shard reductions + ICI collectives, `permute` becomes an
-    all-to-all gather).  This is what CPU runs use.
-  * Pallas fast path — the TPU kernels in `ops/mont_kernels.py` are
-    per-device programs, so sharded inputs route through the
-    `shard_map`-wrapped ops in this module: each shard runs the fused
-    kernel on its local (N/s, L) block and reductions/scans combine
-    the tiny per-shard partials with mesh collectives (`all_gather`
-    over ICI).  `MontCtx` dispatches here automatically whenever an
-    operand's batch axis is sharded over more than one device (see
-    `mont.MontCtx` + `mont.shard_info`).
+    per-shard reductions + collectives, `permute` becomes an all-to-all
+    gather).  This is what CPU runs use.
+  * CUDA core path — the Montgomery core (`vmn_tpu.ops.core`) is an FFI
+    call, which GSPMD cannot partition, so sharded inputs route through
+    the `shard_map`-wrapped ops in this module: each shard runs the core
+    on its local (N/s, L) block and reductions/scans combine the tiny
+    per-shard partials with mesh collectives (`all_gather`).  `MontCtx`
+    dispatches here whenever an operand's batch axis is sharded over more
+    than one device (see `mont.MontCtx._dispatch`).
 
-The protocol layer is agnostic: `GArray`/`FArray`/`PPArray` wrap limb
+The cards of one host are joined all to all, so the mesh is 1-D.  The
+protocol layer is agnostic: `GArray`/`FArray`/`PPArray` wrap limb
 tensors wherever they are placed, so sharding the *inputs* of a session
 shards the whole mix.
 """
@@ -35,6 +35,7 @@ from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from vmn_tpu.arith import mont
+from vmn_tpu.ops import core
 
 CIPH_AXIS = "ciph"
 
@@ -80,107 +81,69 @@ def replicate(x, mesh: Mesh):
 
 
 # =====================================================================
-# shard_map-wrapped Montgomery ops (the multi-chip Pallas fast path)
+# shard_map-wrapped Montgomery ops (the multi-card core path)
 # =====================================================================
 #
-# Every op below runs the per-device kernel (Pallas on TPU; the XLA
-# reference implementation under interpret-mode tests) on each shard's
-# local block, and combines per-shard partials with mesh collectives.
-# Montgomery arithmetic is exact mod m, so any reduction/scan tree
-# shape yields bit-identical canonical limbs — sharded results match
-# the single-device run exactly.
+# Every op below runs the core on each shard's local block and combines
+# per-shard partials with mesh collectives.  Montgomery arithmetic is
+# exact mod m, so any reduction/scan tree shape yields bit-identical
+# canonical limbs — sharded results match the single-device run exactly.
 #
-# The factories are lru_cached per (mesh, axis, pallas) so each jitted
+# The factories are lru_cached per (mesh, axis, ...) so each jitted
 # shard_map program is built once.
 
 
-def _local_mul(a, b, m, mp, pallas: bool):
-    if pallas and a.shape[0] > 0:
-        from vmn_tpu.ops.mont_kernels import mont_mul_pallas
-
-        return mont_mul_pallas(a, b, m, mp)
-    return mont._mont_mul(a, b, m, mp)
-
-
-def _local_exp(b, e, m, mp, one, nbits: int, pallas: bool):
-    if pallas and b.shape[0] > 0:
-        from vmn_tpu.ops.mont_kernels import mont_exp_pallas
-
-        return mont_exp_pallas(b, e, m, mp, one, nbits)
-    return mont.mont_exp(b, e, m, mp, one, nbits)
-
-
-def _local_fb(table, e, m, mp, one, window: int, pallas: bool):
-    ndig = table.shape[0]
-    if pallas and e.shape[0] > 0:
-        if window == 8:
-            from vmn_tpu.ops.mont_kernels import mont_fb8_exp_pallas
-
-            return mont_fb8_exp_pallas(table, e, m, mp, one)
-        from vmn_tpu.ops.mont_kernels import mont_fb_exp_pallas
-
-        return mont_fb_exp_pallas(table, e, m, mp, one)
-    return mont._fixed_base_exp(table, e, m, mp, one, ndig, window)
-
-
 @functools.lru_cache(maxsize=None)
-def _mul_fn(mesh: Mesh, axis: str, pallas: bool):
-    def local(a, b, m, mp):
-        return _local_mul(a, b, m, mp, pallas)
-
+def _mul_fn(mesh: Mesh, axis: str):
     return jax.jit(shard_map(
-        local, mesh=mesh,
-        in_specs=(P(axis, None), P(axis, None), P(None), P()),
+        core.mont_mul, mesh=mesh,
+        in_specs=(P(axis, None), P(axis, None), P(None)),
         out_specs=P(axis, None), check_vma=False,
     ))
 
 
-def sharded_mul(a, b, m, mp, mesh, axis, pallas):
+def sharded_mul(a, b, m, mesh, axis):
     """(N, L) x (N, L) Montgomery product, N sharded over the mesh."""
-    return _mul_fn(mesh, axis, pallas)(a, b, m, mp)
+    return _mul_fn(mesh, axis)(a, b, m)
 
 
 @functools.lru_cache(maxsize=None)
-def _exp_fn(mesh: Mesh, axis: str, pallas: bool, nbits: int):
-    def local(b, e, m, mp, one):
-        return _local_exp(b, e, m, mp, one, nbits, pallas)
+def _exp_fn(mesh: Mesh, axis: str, nbits: int):
+    def local(b, e, m, one):
+        return core.mont_exp(b, e, m, one, nbits)
 
     return jax.jit(shard_map(
         local, mesh=mesh,
-        in_specs=(P(axis, None), P(axis, None), P(None), P(), P(None)),
+        in_specs=(P(axis, None), P(axis, None), P(None), P(None)),
         out_specs=P(axis, None), check_vma=False,
     ))
 
 
-def sharded_exp(b, e, m, mp, one, nbits, mesh, axis, pallas):
+def sharded_exp(b, e, m, one, nbits, mesh, axis):
     """b^e elementwise, batch sharded over the mesh."""
-    return _exp_fn(mesh, axis, pallas, nbits)(b, e, m, mp, one)
+    return _exp_fn(mesh, axis, nbits)(b, e, m, one)
 
 
 @functools.lru_cache(maxsize=None)
-def _fb_fn(mesh: Mesh, axis: str, pallas: bool, window: int):
-    def local(table, e, m, mp, one):
-        return _local_fb(table, e, m, mp, one, window, pallas)
-
+def _fb_fn(mesh: Mesh, axis: str):
     return jax.jit(shard_map(
-        local, mesh=mesh,
-        in_specs=(P(None, None, None), P(axis, None), P(None), P(),
-                  P(None)),
+        core.fb_exp, mesh=mesh,
+        in_specs=(P(None, None, None), P(axis, None), P(None), P(None)),
         out_specs=P(axis, None), check_vma=False,
     ))
 
 
-def sharded_fb_exp(table, e, m, mp, one, window, mesh, axis, pallas):
+def sharded_fb_exp(table, e, m, one, mesh, axis):
     """Fixed-base exponentiation: replicated table, sharded exponents."""
-    return _fb_fn(mesh, axis, pallas, window)(table, e, m, mp, one)
+    return _fb_fn(mesh, axis)(table, e, m, one)
 
 
 @functools.lru_cache(maxsize=None)
-def _prod_fn(mesh: Mesh, axis: str, pallas: bool):
+def _prod_fn(mesh: Mesh, axis: str):
     def local(x, m, mp, one):
-        part = mont._prod_tree(x, m, mp, one, pallas)  # (L,)
+        part = mont._prod_tree(x, m, mp, one)  # (L,)
         parts = jax.lax.all_gather(part, axis)  # (s, L)
-        return mont._prod_tree(parts, m, mp, one, False)[None]
+        return mont._prod_tree(parts, m, mp, one)[None]
 
     return jax.jit(shard_map(
         local, mesh=mesh,
@@ -189,9 +152,9 @@ def _prod_fn(mesh: Mesh, axis: str, pallas: bool):
     ))
 
 
-def sharded_prod(x, m, mp, one, mesh, axis, pallas):
+def sharded_prod(x, m, mp, one, mesh, axis):
     """Product over the sharded axis 0 -> (L,) (replicated result)."""
-    return _prod_fn(mesh, axis, pallas)(x, m, mp, one)[0]
+    return _prod_fn(mesh, axis)(x, m, mp, one)[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,11 +177,11 @@ def sharded_sum(x, m, mesh, axis):
 
 
 @functools.lru_cache(maxsize=None)
-def _expprod_fn(mesh: Mesh, axis: str, pallas: bool, nbits: int):
+def _expprod_fn(mesh: Mesh, axis: str, nbits: int):
     def local(bases, e, m, mp, one):
-        part = mont._expprod_fast(bases, e, m, mp, one, nbits, pallas)
+        part = mont._expprod_fast(bases, e, m, mp, one, nbits)
         parts = jax.lax.all_gather(part, axis)  # (s, L)
-        return mont._prod_tree(parts, m, mp, one, False)[None]
+        return mont._prod_tree(parts, m, mp, one)[None]
 
     return jax.jit(shard_map(
         local, mesh=mesh,
@@ -227,29 +190,51 @@ def _expprod_fn(mesh: Mesh, axis: str, pallas: bool, nbits: int):
     ))
 
 
-def sharded_exp_prod(bases, e, m, mp, one, nbits, mesh, axis=CIPH_AXIS,
-                     pallas=False):
+def sharded_exp_prod(bases, e, m, mp, one, nbits, mesh, axis=CIPH_AXIS):
     """prod_i b_i^{e_i} with the N axis sharded across the mesh.
 
-    Per-shard Straus multi-exp (shared squarings) + an `all_gather` of
-    one (L,) partial per shard over ICI + a tiny final combine —
-    the gmpmee-spowm analogue at pod scale (reference: SURVEY.md §2.3,
-    §2.5 "batch data parallelism").
+    Per-shard shared-squaring multi-exp + an `all_gather` of one (L,)
+    partial per shard + a tiny final combine — the gmpmee-spowm
+    analogue across cards (reference: SURVEY.md §2.3, §2.5 "batch data
+    parallelism").
     """
-    return _expprod_fn(mesh, axis, pallas, nbits)(bases, e, m, mp, one)[0]
+    return _expprod_fn(mesh, axis, nbits)(bases, e, m, mp, one)[0]
 
 
 @functools.lru_cache(maxsize=None)
-def _prods_fn(mesh: Mesh, axis: str, pallas: bool):
+def _positions_fn(mesh: Mesh, axis: str, nbits: int):
+    def local(bases, e, m, mp, one):
+        part = mont._positions_fast(bases, e, m, mp, one, nbits)
+        parts = jax.lax.all_gather(part, axis)  # (s, ndig, L)
+        acc = parts[0]
+        for j in range(1, parts.shape[0]):
+            acc = mont._mul_dispatch(acc, parts[j], m, mp)
+        return acc[None]
+
+    return jax.jit(shard_map(
+        local, mesh=mesh,
+        in_specs=(P(axis, None), P(axis, None), P(None), P(), P(None)),
+        out_specs=P(axis, None, None), check_vma=False,
+    ))
+
+
+def sharded_exp_prod_positions(bases, e, m, mp, one, nbits, mesh, axis):
+    """Per-digit-position products (`mont._expprod_positions`) with the
+    N axis sharded: per-shard positions, multiplied across shards."""
+    return _positions_fn(mesh, axis, nbits)(bases, e, m, mp, one)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _prods_fn(mesh: Mesh, axis: str):
     def local(x, m, mp, one):
-        y = mont._prods_scan(x, m, mp, one, pallas)  # local inclusive
+        y = mont._prods_scan(x, m, mp, one)  # local inclusive
         totals = jax.lax.all_gather(y[-1], axis)  # (s, L)
         # exclusive prefix of the shard totals for THIS shard
         idx = jax.lax.axis_index(axis)
         s = totals.shape[0]
         keep = (jnp.arange(s) < idx)[:, None]
         masked = jnp.where(keep, totals, jnp.broadcast_to(one, totals.shape))
-        pre = mont._prod_tree(masked, m, mp, one, False)  # (L,)
+        pre = mont._prod_tree(masked, m, mp, one)  # (L,)
         return mont._mont_mul(y, pre[None, :], m, mp)
 
     return jax.jit(shard_map(
@@ -259,19 +244,19 @@ def _prods_fn(mesh: Mesh, axis: str, pallas: bool):
     ))
 
 
-def sharded_prods_scan(x, m, mp, one, mesh, axis, pallas):
+def sharded_prods_scan(x, m, mp, one, mesh, axis):
     """Inclusive cumulative Montgomery product, sharded axis 0."""
-    return _prods_fn(mesh, axis, pallas)(x, m, mp, one)
+    return _prods_fn(mesh, axis)(x, m, mp, one)
 
 
 @functools.lru_cache(maxsize=None)
-def _rec_lin_fn(mesh: Mesh, axis: str, pallas: bool):
+def _rec_lin_fn(mesh: Mesh, axis: str):
     def local(mm, aa, m, mp, one):
         # Per-shard affine scan with x_in = 0, then compose the incoming
         # state from the previous shards' (M_total, A_last) pairs:
         #   x_i = A_loc_i + x_in * M_pref_i
-        a_loc = mont._rec_lin_scan(mm, aa, m, mp, one, pallas)
-        m_pref = mont._prods_scan(mm, m, mp, one, pallas)
+        a_loc = mont._rec_lin_scan(mm, aa, m, mp, one)
+        m_pref = mont._prods_scan(mm, m, mp, one)
         pairs_m = jax.lax.all_gather(m_pref[-1], axis)  # (s, L) mont
         pairs_a = jax.lax.all_gather(a_loc[-1], axis)  # (s, L) std
         idx = jax.lax.axis_index(axis)
@@ -296,50 +281,6 @@ def _rec_lin_fn(mesh: Mesh, axis: str, pallas: bool):
     ))
 
 
-def sharded_rec_lin(mm, aa, m, mp, one, mesh, axis, pallas):
+def sharded_rec_lin(mm, aa, m, mp, one, mesh, axis):
     """Affine recurrence x_i = x_{i-1}*e_i + b_i, sharded axis 0."""
-    return _rec_lin_fn(mesh, axis, pallas)(mm, aa, m, mp, one)
-
-
-# ----------------------------------------------------------- EC kernels
-
-
-@functools.lru_cache(maxsize=None)
-def _ec_smul_fn(mesh: Mesh, axis: str, nbits: int):
-    from vmn_tpu.ops.ec_kernels import ec_scalar_mul_pallas
-
-    def local(x, y, inf, e, m, mp, one):
-        return ec_scalar_mul_pallas(x, y, inf, e, m, mp, one, nbits)
-
-    return jax.jit(shard_map(
-        local, mesh=mesh,
-        in_specs=(P(axis, None), P(axis, None), P(axis), P(axis, None),
-                  P(None), P(), P(None)),
-        out_specs=(P(axis, None), P(axis, None), P(axis, None)),
-        check_vma=False,
-    ))
-
-
-def sharded_ec_smul(x, y, inf, e, m, mp, one, nbits, mesh, axis):
-    """Batched EC scalar mul (Jacobian out), batch sharded."""
-    return _ec_smul_fn(mesh, axis, nbits)(x, y, inf, e, m, mp, one)
-
-
-@functools.lru_cache(maxsize=None)
-def _ec_add_fn(mesh: Mesh, axis: str):
-    from vmn_tpu.ops.ec_kernels import ec_point_add_pallas
-
-    def local(x1, y1, z1, x2, y2, z2, m, mp):
-        return ec_point_add_pallas(x1, y1, z1, x2, y2, z2, m, mp)
-
-    return jax.jit(shard_map(
-        local, mesh=mesh,
-        in_specs=(P(axis, None),) * 6 + (P(None), P()),
-        out_specs=(P(axis, None), P(axis, None), P(axis, None)),
-        check_vma=False,
-    ))
-
-
-def sharded_ec_add(x1, y1, z1, x2, y2, z2, m, mp, mesh, axis):
-    """Batched Jacobian point addition, batch sharded."""
-    return _ec_add_fn(mesh, axis)(x1, y1, z1, x2, y2, z2, m, mp)
+    return _rec_lin_fn(mesh, axis)(mm, aa, m, mp, one)

@@ -1,6 +1,6 @@
 """Terelius–Wikström proof of a shuffle — the mathematical heart.
 
-Batched TPU rebuild of the reference's PoSBasicTW + PoSTW
+Batched device rebuild of the reference's PoSBasicTW + PoSTW
 (reference: PoSBasicTW.java:66 — commitment/reply machinery;
 PoSTW.java:94-272 — Fiat–Shamir plumbing and transcript layout).
 
@@ -287,7 +287,7 @@ class PoSVerifier:
         # (soundness 2^-100, the protocol's statistical parameter; the
         # reference checks five separate equations with the same array
         # ops, PoSBasicTW.java:1000-1066 — the random combination is
-        # the TPU-shaped equivalent, see docs/DEVIATIONS.md).
+        # the batched equivalent, see docs/DEVIATIONS.md).
         #
         #   C:   C^v Cp       == g^{k_C}
         #   D:   D^v Dp       == g^{k_D}

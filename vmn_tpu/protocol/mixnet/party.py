@@ -521,7 +521,7 @@ class MixSession:
 
         # Out-of-core: spill the big resident arrays to disk memmaps in
         # arrays=file mode (reference: file-mapped arrays for N beyond
-        # RAM, ProtocolElGamal.java:332-345; TPU equivalent SURVEY §2.5
+        # RAM, ProtocolElGamal.java:332-345; device equivalent SURVEY §2.5
         # "host-RAM/disk spill with streamed device transfers").
         from vmn_tpu.arith import storage
 
